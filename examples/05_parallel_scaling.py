@@ -1,9 +1,9 @@
 """Worked example 5: the three parallel axes, on a virtual 8-device mesh.
 
 Demonstrates how the framework scales across a `jax.sharding.Mesh`
-WITHOUT TPU-pod hardware: XLA's virtual CPU devices exercise the exact
+WITHOUT several accelerators: XLA's virtual CPU devices exercise the exact
 sharded programs (same `shard_map` collectives, same partitioning) that
-run over ICI on a real slice.
+run across the cards of a real machine.
 
   1. case-parallel design sweep (`design_sweep(mesh=...)`),
   2. row-sharded distributed PCG (`analyze(solver='pcg', mesh=...)`),
@@ -49,7 +49,7 @@ waves = make_wave_batch(np.linspace(2.0, 14.0, B), 9.4, 50.0, U_c=1.7,
                         model="stokes", N=5, n_modes=8, dtype=jnp.float32)
 cases = make_case_batch(case, t_analysis=jnp.zeros(B, jnp.float32))
 res = design_sweep(model, waves, cases, mesh=mesh, n_gauss=5)
-crit = critical_case(res)                 # argmax = an ICI all-reduce
+crit = critical_case(res)                 # argmax = an all-reduce
 print(f"sweep: {B} cases over {len(devs)} devices; governing case "
       f"{int(crit['index'])} at {float(crit['max_utilization']):.2%}")
 

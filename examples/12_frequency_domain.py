@@ -67,7 +67,7 @@ print(f"dynamic CB transfer: damage ratio vs quasi-static at the "
 # -- the long-term climate as ONE device program --------------------------
 # an (Hs, Tp, occurrence, heading) scatter diagram; states stream through
 # lax.map against the prepared factor (add mesh=Mesh(devs, ('cases',)) to
-# shard the state axis over a TPU pod slice)
+# shard the state axis over several devices)
 scatter = [
     (2.5, 7.0, 0.55, 0.0),
     (4.5, 8.5, 0.25, 38.0),

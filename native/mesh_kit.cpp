@@ -1,6 +1,6 @@
 // mesh_kit: native host-side mesh preprocessing for small_fem_solver_tpu.
 //
-// The TPU owns all numerics (JAX/XLA/Pallas); this library covers the
+// JAX owns all numerics; this library covers the
 // latency-sensitive host-side runtime work that sits in front of it:
 //
 //   * build_bcsr_pattern: block-sparsity pattern of the global stiffness

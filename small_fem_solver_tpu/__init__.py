@@ -1,10 +1,10 @@
-"""small_fem_solver_tpu — TPU-native offshore-jacket structural analysis.
+"""small_fem_solver_tpu — offshore-jacket structural analysis in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the full capabilities of the
+A from-scratch JAX/XLA framework with the full capabilities of the
 reference tool `JK-hqy/Small-FEM-Solver-based-on-a-lot-of-assumption`
 (wave kinematics -> Morison loading -> 3D Timoshenko beam FEM -> stresses),
-redesigned for TPU: batched XLA programs, vmapped phase scans and design
-sweeps, block-sparse assembly and preconditioned-CG solves, and
+redesigned for an accelerator: batched XLA programs, vmapped phase scans
+and design sweeps, block-sparse assembly and preconditioned-CG solves, and
 `jax.sharding` device-mesh scaling.
 """
 

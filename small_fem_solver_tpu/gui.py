@@ -21,7 +21,7 @@ import numpy as np
 
 INFO_TEXT = """\
 ================================================================
-  TPU-NATIVE JACKET STRUCTURAL ANALYSIS — THEORY & ASSUMPTIONS
+  JAX JACKET STRUCTURAL ANALYSIS — THEORY & ASSUMPTIONS
 ================================================================
 
 1. COORDINATE SYSTEM
@@ -359,7 +359,7 @@ def run_analysis_core(p: dict, nodes_data, members_data, fixed_nodes,
 class JacketGUI:
     def __init__(self, root):
         self.root = root
-        root.title("TPU-Native Jacket Structural Analysis")
+        root.title("JAX Jacket Structural Analysis")
         root.geometry("1500x950")
 
         self.nodes_data: dict[str, list] = {}

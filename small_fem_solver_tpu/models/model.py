@@ -1,7 +1,7 @@
 """Array-based structural model (mesh) for jacket space frames.
 
 Capability parity with the reference ``CustomJacketStructure``
-(`/root/reference/JacketAnalysisGUI_v2.py:302-354`), redesigned TPU-first:
+(`JacketAnalysisGUI_v2.py:302-354`), redesigned for an accelerator:
 the reference stores a dict of named nodes and a list of member dicts and
 loops over them in Python; here the model is a pytree of packed arrays
 (float coordinates, int32 connectivity, per-member section ids, boolean

@@ -1,11 +1,11 @@
 """ctypes bindings for the native mesh-preprocessing library.
 
-The TPU (JAX/XLA/Pallas) owns all numerics; ``native/mesh_kit.cpp`` covers
-the host-side runtime in front of it — O(M) hash-based BCSR pattern
-construction, reverse Cuthill-McKee ordering, and chain refinement — with a
-transparent numpy fallback when the shared library hasn't been built
-(`make -C native`).  The build is attempted automatically once per process
-if a compiler is available.
+JAX owns all numerics; ``native/mesh_kit.cpp`` covers the host-side
+runtime in front of it — O(M) hash-based BCSR pattern construction, reverse
+Cuthill-McKee ordering, and chain refinement — with a transparent numpy
+fallback when the shared library cannot be built.  An incremental
+``make -C native`` runs once per process, so a library older than its
+source is rebuilt before it is loaded.
 """
 from __future__ import annotations
 
@@ -26,11 +26,12 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not _LIB_PATH.exists() and (_NATIVE_DIR / "Makefile").exists():
+    if (_NATIVE_DIR / "Makefile").exists():
+        # incremental: rebuilds a library older than its source
         try:
             subprocess.run(["make", "-C", str(_NATIVE_DIR), "-s"],
                            check=True, capture_output=True, timeout=120)
-        except Exception:
+        except (OSError, subprocess.SubprocessError):
             return None
     if not _LIB_PATH.exists():
         return None

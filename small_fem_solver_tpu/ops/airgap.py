@@ -9,7 +9,7 @@ deck underside with the customary margin (ISO 19902 recommends a positive
 air gap of at least 1.5 m above the extreme crest; surge and tide raise
 the effective still-water level).
 
-TPU shape: the crest search is one batched `surface_elevation` evaluation
+Device shape: the crest search is one batched `surface_elevation` evaluation
 over an [n_phases, n_x] grid — a single fused elementwise program, no
 host loops.
 """

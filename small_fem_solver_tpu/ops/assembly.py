@@ -1,7 +1,7 @@
 """Global stiffness assembly: dense scatter-add and block-sparse (BCSR).
 
 Capability parity with ``FEMSolver._assemble_global_stiffness``
-(`/root/reference/JacketAnalysisGUI_v2.py:457-467`), redesigned TPU-first.
+(`JacketAnalysisGUI_v2.py:457-467`), redesigned for an accelerator.
 The reference scatters each 12x12 element matrix into a dense n_dof x n_dof
 numpy array with a Python triple loop; here:
 
@@ -65,12 +65,12 @@ class BCSRPattern:
     block_cols: jnp.ndarray
     row_ptr: jnp.ndarray
     elem_slot: jnp.ndarray
-    # TWO-TIER gather plan (padded with 4M -> a zero row): gathers measured
-    # 2.3x faster than segment_sum scatter at 100k DOF on TPU, and two
-    # gathers cover the first two contributions of every block — on refined
-    # meshes that is ALL of the blocks except the few original hub nodes
-    # (a flat [n_blocks, max_c] table wasted max_c = 8 full-size gathers on
-    # a majority of single-contribution blocks; measured 1.16 -> ~0.4 ms).
+    # TWO-TIER gather plan (padded with 4M -> a zero row): gathers instead
+    # of a segment_sum scatter, and two gathers cover the first two
+    # contributions of every block — on refined meshes that is ALL of the
+    # blocks except the few original hub nodes (a flat [n_blocks, max_c]
+    # table would waste max_c = 8 full-size gathers on a majority of
+    # single-contribution blocks).
     # The leftovers (contribution 3+, only at high-degree nodes) go through
     # one small scatter-add.
     gather_idx: jnp.ndarray | None = None     # [n_blocks, <=2]
@@ -180,8 +180,8 @@ def assemble_bcsr(K_elems: jnp.ndarray, pattern: BCSRPattern) -> BCSRMatrix:
 
     With the pattern's two-tier gather plan: two row-gathers over the 4M
     element sub-blocks cover every block's first two contributions
-    (scatter-free; TPU scatters on (6, 6)-shaped rows badly underfill the
-    vector tiles — measured 9.3 vs 4.0 ms at 100k DOF), plus one small
+    (scatter-free: written for an accelerator whose scatters on (6, 6)-
+    shaped rows underfilled its vector tiles), plus one small
     scatter-add for the 3rd+ contributions of high-degree hub blocks.
     Falls back to one ``segment_sum`` for patterns without the plan.
     """
@@ -223,9 +223,9 @@ def assemble_bcsr(K_elems: jnp.ndarray, pattern: BCSRPattern) -> BCSRMatrix:
 # order directly, with one tiny scatter for hub-node 3rd+ contributions
 # and duplicate edges.  The geometry inputs are permuted into lane order
 # at prepare time (host numpy), so the jitted assembly runs zero gathers:
-# it is pure elementwise lane arithmetic (benchmarks/ab_assembly_direct.py:
-# marginal 0.211 ms vs 0.335 ms for the gather path at 99,882 DOF f32 on
-# the TPU).  Replaces the reference's Python triple-loop scatter
+# it is pure elementwise lane arithmetic (written for an accelerator's
+# lane layout; on the H100 the gather path measured faster, see PERF.md).
+# Replaces the reference's Python triple-loop scatter
 # (`JacketAnalysisGUI_v2.py:457-467`) at full bandwidth.
 #
 # Limitations: end releases are not supported (use the generic path), and

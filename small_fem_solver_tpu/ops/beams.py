@@ -1,12 +1,12 @@
 """Batched 12-DOF 3D Timoshenko beam elements.
 
 Capability parity with the reference ``BeamElement3D``
-(`/root/reference/JacketAnalysisGUI_v2.py:360-432`), redesigned TPU-first:
+(`JacketAnalysisGUI_v2.py:360-432`), redesigned for an accelerator:
 the reference builds one Python object with explicit 12x12 numpy matrices per
 member; here the local-axes rotation, local stiffness and global stiffness of
 ALL members are produced as stacked ``[M, 12, 12]`` tensors by vectorized
 closed-form expressions — the vertical-member branch becomes a ``where`` mask
-and the congruence transform T^T K T a batched matmul (MXU-friendly).
+and the congruence transform T^T K T a batched product.
 
 Element formulation details replicated exactly (required for 1e-8 parity):
 
@@ -79,7 +79,7 @@ def transformation_matrices(R):
 # (axial; 12bz, 6bzL, (4+Phi_y)bzL^2, (2-Phi_y)bzL^2; same for y-bending with
 # the reference's sign pattern; torsion).  Expressing K_local as a single
 # [M, 10] x [10, 144] contraction turns element-stiffness construction into
-# one MXU matmul instead of ~40 scattered writes.
+# one matmul instead of ~40 scattered writes.
 def _build_kpat():
     P = np.zeros((10, 12, 12))
 
@@ -171,10 +171,10 @@ def global_stiffness_direct(R, coeffs):
     signed sum of rank-one terms:  K_g[3B1+r, 3B2+s] =
     sum_c coeff_c * P_c[3B1+a, 3B2+b] * l_a[r] * l_b[s]  (l_a = rows of R).
     Expanding the ~40 nonzero pattern entries gives pure elementwise
-    multiply-adds over [M]-major arrays — ideal VPU shape with members on
+    multiply-adds over [M]-major arrays — vector-friendly with members on
     lanes, vs. the batched congruence whose [M, 12, 12, 12] broadcast
-    intermediates made assembly HBM-bound (measured 13 GB/s effective at
-    100k DOF).  Replaces the role of the reference's per-member
+    intermediates made assembly bound by device-memory traffic.  Replaces
+    the role of the reference's per-member
     ``T.T @ K_local @ T`` (`JacketAnalysisGUI_v2.py:369`).
     """
     g = _direct_block_grid(R, coeffs)
@@ -217,16 +217,16 @@ def congruence(T, K):
     """Batched ``T^T K T`` for [M, 12, 12] stacks, as broadcast-multiply
     reductions.
 
-    XLA:TPU lowers tiny batched matmuls (12x12 per batch element) onto
-    mostly-empty 128x128 MXU tiles — measured 2.1 ms for M=1632 vs 1.3 ms
-    for this VPU-shaped form (the FLOPs are trivial; layout is everything).
+    Written for an accelerator that lowered tiny batched matmuls (12x12
+    per batch element) onto mostly-empty 128x128 matrix tiles; kept until
+    measured on the GPU (the FLOPs are trivial; layout is everything).
     """
     TtK = jnp.sum(T[:, :, :, None] * K[:, :, None, :], axis=1)
     return jnp.sum(TtK[:, :, :, None] * T[:, None, :, :], axis=2)
 
 
 def matmul12(A, B):
-    """Batched [M, r, 12] @ [M, 12, 12] -> [M, r, 12] (VPU-shaped)."""
+    """Batched [M, r, 12] @ [M, 12, 12] -> [M, r, 12] (elementwise form)."""
     return jnp.sum(A[:, :, :, None] * B[:, None, :, :], axis=2)
 
 
@@ -235,9 +235,9 @@ def matvec12(A, u):
     unrolled into fused multiply-adds (``A``: [M, r, 12], ``u``: [..., M, 12],
     result [..., M, r]).
 
-    The einsum form lowers to per-member MXU passes (measured 2.6 ms for
-    S=360, M=1632 vs 1.5 ms for this form); unrolling keeps the wide
-    [..., M] axes on VPU lanes.
+    Unrolling keeps the wide [..., M] axes on vector lanes instead of
+    per-member matrix-unit passes (written for an earlier accelerator;
+    kept until measured on the GPU).
     """
     acc = u[..., 0, None] * A[:, :, 0]
     for j in range(1, A.shape[-1]):
@@ -272,8 +272,7 @@ def release_transform(K_local, release):
 
     ``A = P K P + (I - P)`` is SPD for bending-rotation releases (the
     rotational block of a beam with clamped translations is PD), so the
-    batched solve is Cholesky — no LU, which would not lower in f64 on the
-    TPU backend.
+    batched solve is Cholesky.
     """
     m = jnp.asarray(_REL_MASKS, dtype=K_local.dtype)[release]   # [M, 12]
     eye = jnp.eye(12, dtype=K_local.dtype)
@@ -312,7 +311,7 @@ def element_stiffness(coords, conn, sec: TubeSections, sect_id, E, G,
 
     Returns (K_global [M,12,12], K_local [M,12,12], T [M,12,12], L_m [M]).
     ``K_global = T^T K_local T`` (`JacketAnalysisGUI_v2.py:369`) as a batched
-    congruence (see :func:`congruence` for the TPU layout note).
+    congruence (see :func:`congruence` for the layout note).
     ``release`` ([M] int codes, see :data:`RELEASE_PIN_BOTH`) statically
     condenses pinned end rotations out of K_local BEFORE the rotation, so
     every consumer (assembly, condensation chains, internal-force recovery)

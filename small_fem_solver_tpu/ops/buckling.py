@@ -1,9 +1,9 @@
 """Buckling checks: member Euler screening and global linearized buckling.
 
 A capability beyond the reference, which excludes buckling entirely (its
-Info tab exclusion list, `/root/reference/JacketAnalysisGUI_v2.py:1544-1799`)
+Info tab exclusion list, `JacketAnalysisGUI_v2.py:1544-1799`)
 — yet axially loaded tubular members are exactly where jacket designs fail
-first.  Two levels, both batched TPU-style:
+first.  Two levels, both batched:
 
 1. :func:`euler_member_screen` — per-member axial force vs the Euler
    critical load pi^2 E I / (K L)^2 (a code-style slenderness screen;
@@ -220,9 +220,10 @@ def _buckling_pencil(K_ff, KG_ff, n_modes, dtype):
     A = 0.5 * (A + A.T)
     from .dynamics import _eigh_backend
     if _eigh_backend() == "subspace":
-        # device path: eigh is unimplemented on the TPU backend; the
-        # governing factors are 1 / (largest mu), exactly what block power
-        # iteration converges to first (ops/eigen.py)
+        # block power iteration (written for an accelerator without eigh;
+        # kept until measured on the GPU): the governing factors are
+        # 1 / (largest mu), exactly what it converges to first
+        # (ops/eigen.py)
         from .eigen import subspace_largest
         mu_top, phi_y = subspace_largest(A, n_modes)
     else:

@@ -42,8 +42,8 @@ is a gather + batched 6x6 einsum + ``segment_sum``:
             coarse block table (K^2 passes, build-time only)        O(nnz K^2)
 
 The previous DENSE [6n, 6 n_agg] prolongator needed a multi-GB matmul per
-CG iteration at ~100k DOF (28.4 GB of 15.75 GB HBM — the round-4 bench
-OOM); the sparse form is O(n) per iteration like everything else in the
+CG iteration at ~100k DOF (28.4 GB, more than the device held); the
+sparse form is O(n) per iteration like everything else in the
 solver.  ``build_coarse_space_dense`` keeps the dense construction for
 small-scale cross-checks (tests/test_pcg_precond.py asserts the two agree
 to roundoff).
@@ -240,7 +240,7 @@ def _block_jacobi_inverse(A: BCSRMatrix, free):
     eye6 = jnp.eye(6, dtype=A.blocks.dtype)
     Dm = bcsr_block_diagonal(A) * mask[:, :, None] * mask[:, None, :] \
         + eye6 * (1.0 - mask)[:, :, None]
-    return spd_block_inv(Dm)  # Cholesky: f64 LU is unimplemented on TPU
+    return spd_block_inv(Dm)  # Cholesky-based (see spd_block_inv)
 
 
 def _factor_coarse(Ac, n_agg: int):
@@ -252,9 +252,8 @@ def _factor_coarse(Ac, n_agg: int):
     Also returns the EXPLICIT inverse of the scaled operator (via two
     multi-RHS triangular solves of the factor, build-time only): the
     per-iteration coarse solve is then one [6 n_agg]^2 mat-vec on the
-    vector units instead of two sequential triangular solves — measured
-    ~19 ms -> ~1 ms per CG iteration at n_agg=225 in f64 on the TPU
-    (triangular solves are latency-bound: 6 n_agg dependent steps).
+    vector units instead of two sequential triangular solves (triangular
+    solves are latency-bound: 6 n_agg dependent steps).
     Rounding differences vs the solve form are O(eps kappa(A_c_scaled))
     and irrelevant to preconditioning quality."""
     d = jnp.diagonal(Ac)

@@ -1,6 +1,6 @@
 """Exact substructure condensation for refined jacket models.
 
-This is the TPU-native large-mesh *direct* solver.  ``refine_model(m, n_seg)``
+This is the large-mesh *direct* solver.  ``refine_model(m, n_seg)``
 subdivides every member into a chain of ``n_seg`` beam elements whose
 interior nodes couple only along the chain.  Eliminating those interior DOFs
 exactly (block-tridiagonal Gaussian elimination, i.e. the block Thomas
@@ -54,10 +54,9 @@ def _chol6(A):
     """Lower Cholesky of SPD [..., 6, 6] blocks, fully unrolled.
 
     ``jnp.linalg.cholesky`` + ``solve_triangular`` on 6x6 blocks lower to
-    nested XLA loops whose per-step latency dominates the chain scans
-    (measured: a 31-step factor scan drops from 2.2 ms to 1.2 ms on TPU
-    with the unrolled form).  Six static rank-1 updates, batched over the
-    leading dims, keep everything on VPU lanes.
+    nested XLA loops whose per-step latency dominates the chain scans.
+    Six static rank-1 updates, batched over the leading dims, keep
+    everything elementwise.
     """
     cols = []
     for k in range(6):
@@ -257,8 +256,8 @@ def chain_matvec(K_elems: jnp.ndarray, n_seg: int, conn_coarse, U_I_nodes, v):
     interface coupling, so its matvec needs no gather/scatter over the
     refined DOF vector — three batched 6x6 einsums on the interior tensor
     and one tiny interface scatter (2 Mc adds into nc nodes).  Used for the
-    iterative-refinement residual in float32 scans (a vmapped element
-    scatter-add at [S, n_dof] scale measured ~2x the whole solve on TPU).
+    iterative-refinement residual in float32 scans (in place of a vmapped
+    element scatter-add at [S, n_dof] scale).
 
     ``K_elems``: [Mc * n_seg, 12, 12] member-major refined element stiffness;
     ``U_I_nodes``: [S, nc, 6] interface displacements;
@@ -306,7 +305,7 @@ class NestedChainFactor(NamedTuple):
     - *float32 stability*: each level factors chains of depth <= ~20, whose
       bending conditioning (~depth^4) stays within f32 range — the flat
       factorization at depth ~327 carries O(1) error (tests/test_large.py);
-    - *TPU wall-clock*: the sequential ``lax.scan`` depth drops from
+    - *wall-clock*: the sequential ``lax.scan`` depth drops from
       O(n_seg) to O(n_outer + n_sub) = O(sqrt(n_seg)) while every step
       processes Mc * n_outer chains in parallel instead of Mc.
 
@@ -428,10 +427,8 @@ def back_substitute_nested(fac: NestedChainFactor, v_g, u_I, u_J):
 
 
 # ---------------------------------------------------------------------------
-# A parallel-cyclic-reduction (PCR) chain solver lived here through round 2.
-# It was A/B'd at the flagship shape and retired in round 3: the factor cost
-# 15 ms (vs ~1 ms Thomas/nested) and was f32-UNSTABLE (NaN pivots even at
-# depth 31); its RHS sweeps did beat Thomas (1.66 vs 2.26 ms at S=360) but
-# never enough to recover the factor cost in any real workload.  Full
-# measurements: docs/ROADMAP.md "Performance".  git history has the code.
+# A parallel-cyclic-reduction (PCR) chain solver lived here once.  It was
+# retired: its factor cost was never repaid by its faster RHS sweeps in any
+# real workload, and it was f32-UNSTABLE (NaN pivots even at depth 31).
+# git history has the code.
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Deterministic fatigue screening (S-N damage over phase-resolved stress).
 
 The reference excludes fatigue entirely (its Info-tab exclusion list); this
-is a SCREENING tool on top of the phase-resolved solutions the TPU pipeline
+is a SCREENING tool on top of the phase-resolved solutions the pipeline
 produces anyway: a full-FEM phase scan gives every member's von Mises
 history over one wave cycle, so the per-cycle stress range is exact (not a
 single-point quasi-static estimate), and Miner damage for an exposure

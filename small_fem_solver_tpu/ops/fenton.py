@@ -7,7 +7,7 @@ method for steady water waves", J. Fluid Mech. 104 (1981), as refined in
 Fenton, "The numerical solution of steady water wave problems", Computers &
 Geosciences 14 (1988).
 
-TPU-first design: the nonlinear collocation system is solved by a
+Device-first design: the nonlinear collocation system is solved by a
 fixed-iteration Newton method written in jnp (Jacobian via ``jax.jacfwd``,
 dense solve) with wave-height continuation for steep waves — so wave *setup*
 is itself jittable and vmappable over (H, T) case batches, and the result is

@@ -11,7 +11,7 @@ stress std devs, spectral moments, mean-upcrossing rates, closed-form
 fatigue damage, most-probable-maximum (MPM) storm extremes — follows in
 closed form.
 
-TPU shape: the per-mode spatial coefficients are the SAME ``[P, N]``
+Device shape: the per-mode spatial coefficients are the SAME ``[P, N]``
 matrices as the separable time-batch engine
 (:func:`.morison._mode_spatial_coeffs`), the 2N+1 load columns ride the
 same condensed multi-RHS solve as a (2N+1)-step phase scan, and the

@@ -1,7 +1,7 @@
 """Morison-equation hydrodynamic member loading, fully vectorized.
 
 Capability parity with the reference ``MorisonCalculator``
-(`/root/reference/JacketAnalysisGUI_v2.py:539-724`), redesigned TPU-first:
+(`JacketAnalysisGUI_v2.py:539-724`), redesigned for an accelerator:
 the reference loops Python-side over members and 15 Gauss points, calling the
 wave model ~765 times per load evaluation; here all (member, quadrature
 point) kinematics are evaluated in ONE call to the Fourier wave kernel on an
@@ -61,8 +61,8 @@ def hydro_members(model, marine_growth_mm, Cd, Cm):
     pass through untouched (reference semantics, zero overhead).
 
     The reference's Info tab lists appurtenances as excluded
-    (`/root/reference/JacketAnalysisGUI_v2.py:141`); this is the
-    TPU-native upgrade: the extra segments ride the same batched
+    (`JacketAnalysisGUI_v2.py:141`); here the extra segments ride the
+    same batched
     kinematics/integrand arrays, so the cost is O(A/M), not a second pass.
     """
     D_m = hydro_diameter_m(model.sections, model.sect_id, marine_growth_mm)
@@ -326,7 +326,7 @@ def phase_scan(
 
 
 # ---------------------------------------------------------------------------
-# Separable phase-batch evaluation (the TPU fast path)
+# Separable phase-batch evaluation (the fast path)
 # ---------------------------------------------------------------------------
 
 class MorisonPhaseBatch(NamedTuple):
@@ -367,9 +367,9 @@ def morison_phase_batch(
     cos(j theta) = cos(jkx) cos(jwt) + sin(jkx) sin(jwt).  The spatial
     factors (cos/sin(jkx) and the depth profiles C_j, S_j) depend only on
     geometry, so they are computed ONCE for all quadrature points, and the
-    kinematics of ALL phases reduce to one [S, N] x [N, P] matmul feeding
-    the MXU — versus the pointwise path re-evaluating transcendentals per
-    phase (an 18-mode, 360-phase scan does 18x fewer sin/cos/exp here).
+    kinematics of ALL phases reduce to one [S, N] x [N, P] matmul — versus
+    the pointwise path re-evaluating transcendentals per phase (an 18-mode,
+    360-phase scan does 18x fewer sin/cos/exp here).
 
     Semantics: analytic d/dt (exact for the Fourier representation) and no
     evaluation-height clamp — i.e. the mathematical kinematics; the
@@ -542,7 +542,7 @@ def _morison_batch_core(kv, wv, phiv, E, U, d, U_c, coords, conn, D_m,
     ct = jnp.cos(jw * ts[:, None].astype(dtype))           # [S, N]
     st = jnp.sin(jw * ts[:, None].astype(dtype))
 
-    # the MXU op: [S, N] @ [F, N, P] -> [F, S, P]
+    # the one matrix product: [S, N] @ [F, N, P] -> [F, S, P]
     fields = jnp.einsum("sn,fpn->fsp", ct, Acat) \
         + jnp.einsum("sn,fpn->fsp", st, Bcat)
     eta, u_x, u_y, wv, du_x, du_y, dw = fields[:7]         # each [S, P]

@@ -23,7 +23,7 @@ axial stiffness coefficient is scaled by s_m = min(1, cap/|N_m|) and the
 system re-solved until every yielded member carries exactly its capacity
 (convergence is judged on the PHYSICAL capacity violation, not the
 fixed-point increment — multi-member redistribution converges slowly in
-increments while the violation is already < 0.1%).  TPU-first shape: the
+increments while the violation is already < 0.1%).  Device shape: the
 axial term separates from the element pattern (K_local = K_rest +
 (EA/L) P0), so one iteration = a batched congruence + dense assembly +
 Jacobi-scaled Cholesky, and the WHOLE lambda grid runs as one vmapped

@@ -335,13 +335,13 @@ def utilization_response_batch(model, case, d: float, U_c: float = 0.0,
                                n_steps: int = 24, h_min: float = 0.05,
                                h_max: float | None = None, mesh=None):
     """``response_batch(hs[n], tp[n]) -> max utilization [n]`` as ONE
-    device program — the TPU-native Monte-Carlo path.
+    device program — the batched Monte-Carlo path.
 
     The whole sample batch becomes a wave-case batch through the existing
     storm-envelope machinery (`api.design_envelope`): stiffness factored
     once, all cases x phases in one multi-RHS solve, and with ``mesh`` (1-D
     device mesh, axis 'cases') the samples shard across chips with the
-    governing reduction on ICI.  Clipping semantics match
+    governing reduction across devices.  Clipping semantics match
     :func:`utilization_response`.
     """
     from ..api import design_envelope

@@ -1,7 +1,7 @@
 """Thin-wall tubular section properties as a batched pytree.
 
 Capability parity with the reference ``TubularSection`` dataclass
-(`/root/reference/JacketAnalysisGUI_v2.py:115-160`), redesigned TPU-first:
+(`JacketAnalysisGUI_v2.py:115-160`), redesigned for an accelerator:
 instead of one Python object per section, a :class:`TubeSections` pytree holds
 *stacked arrays* over any number of sections so every downstream consumer
 (element stiffness, Morison diameter lookup, stress recovery) is a gather +

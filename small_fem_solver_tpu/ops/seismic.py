@@ -25,9 +25,7 @@ no per-mode Python loops.  Units follow the package convention: K in
 N/mm and M in tonnes make omega^2 come out in 1/s^2 directly; spectral
 accelerations are converted m/s^2 -> mm/s^2 so modal displacements are mm.
 
-TPU note: like every dense eigensolve in the package, f64 sessions must
-route to the host CPU (the CLI ``seismic`` command does, same as
-``modes``); f32 sessions run on-device.
+The eigensolves run on the device in f32 and f64 alike.
 """
 
 from __future__ import annotations

@@ -55,7 +55,6 @@ Units: soil input in engineering units (kPa, kN/m^3, m, mm); internal SI
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple, Sequence
 
@@ -306,9 +305,7 @@ def _newton(K, F, soil_force, soil_jac, n_iter: int = 60):
     lax.fori_loop compiles the body regardless, and this is a
     once-per-design setup path, not a per-phase hot loop.  The tangent J
     is NOT guaranteed SPD (plastic p-y plateaus zero the soil diagonal),
-    so the solve is LU — which has no f64 lowering on the TPU backend.
-    Route f64 sessions to the host CPU, same pattern as the harmonic
-    solves (cli._cpu_if_f64).
+    so the solve is LU.
     """
     def body(_, u):
         R = K @ u + soil_force(u) - F
@@ -316,13 +313,8 @@ def _newton(K, F, soil_force, soil_jac, n_iter: int = 60):
         du = jnp.linalg.solve(J, R)
         return u - du
 
-    if F.dtype == jnp.float64 and jax.default_backend() != "cpu":
-        ctx = jax.default_device(jax.devices("cpu")[0])
-    else:
-        ctx = contextlib.nullcontext()
-    with ctx:
-        u = jax.lax.fori_loop(0, n_iter, body, jnp.zeros_like(F))
-        R = K @ u + soil_force(u) - F
+    u = jax.lax.fori_loop(0, n_iter, body, jnp.zeros_like(F))
+    R = K @ u + soil_force(u) - F
     return u, jnp.linalg.norm(R) / (jnp.linalg.norm(F) + 1.0)
 
 

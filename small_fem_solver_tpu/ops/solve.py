@@ -1,7 +1,7 @@
 """Linear static solvers: dense (LU / Cholesky) and matrix-free PCG.
 
 Capability parity with ``FEMSolver.solve`` / ``get_reactions``
-(`/root/reference/JacketAnalysisGUI_v2.py:473-502`), redesigned TPU-first:
+(`JacketAnalysisGUI_v2.py:473-502`), redesigned for an accelerator:
 
 - Boundary conditions: the reference partitions free/fixed DOFs with numpy
   ``setdiff1d`` and solves the dense free-free block.  The partition depends
@@ -10,7 +10,7 @@ Capability parity with ``FEMSolver.solve`` / ``get_reactions``
 - Small systems: one LAPACK-style dense solve.  ``solve_dense`` mirrors the
   reference's ``np.linalg.solve`` (LU); ``factor_dense``/``solve_factored``
   expose a Cholesky factor-once path so a 360-point phase scan is ONE
-  factorization plus a single multi-RHS triangular solve (an MXU-shaped op)
+  factorization plus a single multi-RHS triangular solve
   instead of 360 dense solves.
 - Large systems: matrix-free preconditioned conjugate gradients on the BCSR
   operator with Jacobi or block-Jacobi (6x6 node block) preconditioning.
@@ -147,7 +147,7 @@ def factor_dense(K, free_dofs) -> DenseFactor:
     span ~8 orders of magnitude between axial (N/mm) and rotational
     (N*mm/rad) DOFs, and scaling d K d with d = diag(K)^(-1/2) drops the
     effective condition number by orders of magnitude — this is what makes
-    the float32 TPU fast path accurate (see also ``solve_factored``'s
+    the float32 fast path accurate (see also ``solve_factored``'s
     iterative refinement).
     """
     free = jnp.asarray(free_dofs)
@@ -171,7 +171,7 @@ def solve_factored(fac: DenseFactor, F, refine_steps: int = 1):
     """Solve for one RHS [n_dof] or a batch [B, n_dof] with one factor.
 
     The phase-scan fast path: K is time-independent, so 360 wave phases are
-    one triangular solve with a [n_free, 360] RHS matrix (an MXU-shaped op).
+    one triangular solve with a [n_free, 360] RHS matrix.
     ``refine_steps`` rounds of iterative refinement (residual matvec + one
     more triangular solve, all O(n^2) vs the O(n^3) factor) recover
     near-working-precision accuracy in float32.
@@ -219,10 +219,9 @@ def pcg_run(matvec: Callable, precond: Callable, state, bnorm,
     """Run CG from ``state`` until convergence or ``it >= it_stop``
     (lax.while_loop; call under jit).  The state is re-enterable: a host
     loop can dispatch bounded segments (``it_stop = k*chunk``) and check
-    convergence between dispatches — required on hardware where a single
-    multi-10s device program trips the runtime watchdog (measured: the
-    99,882-DOF f64 solve as ONE program crashes the TPU worker; the same
-    solve in 200-iteration segments completes)."""
+    convergence between dispatches (written for an accelerator whose
+    runtime watchdog killed a multi-10s device program; kept until
+    measured on the GPU)."""
     def cond(state):
         x, r, p, rz, it = state
         return jnp.logical_and(it < it_stop,
@@ -278,10 +277,10 @@ def projected_operator(matvec: Callable, free_mask: jnp.ndarray) -> Callable:
 def spd_block_inv(D: jnp.ndarray) -> jnp.ndarray:
     """Batched inverse of small SPD blocks via scaled Cholesky.
 
-    ``jnp.linalg.inv`` lowers to LuDecomposition, which the TPU backend
-    only implements for f32/c64 — f64 [n,6,6] batches fail to compile.
-    The blocks here are SPD (diagonal blocks of an SPD stiffness with
-    identity fill on fixed DOFs), so factor instead with Cholesky after a
+    Written for an accelerator whose LU (behind ``jnp.linalg.inv``) had no
+    f64 lowering; kept until measured on the GPU.  The blocks here are SPD
+    (diagonal blocks of an SPD stiffness with identity fill on fixed DOFs),
+    so factor instead with Cholesky after a
     symmetric Jacobi scaling (keeps the factor positive across the ~1e10
     axial-vs-bending magnitude spread; see CLAUDE.md invariants).
     """

@@ -8,7 +8,7 @@ needs the irregular sea states behind that design wave: wave-frequency
 response statistics, significant response, and fatigue damage accumulated
 over a sea state — all of which require an N-component linear random sea.
 
-TPU-first design: a realization is a :class:`SpectralSea` pytree of
+Device-first design: a realization is a :class:`SpectralSea` pytree of
 independent components (omega_i, k_i, a_i, phi_i).  Each component is a
 linear (Airy) wave, so the kinematics of ALL components at ALL times remain
 ONE separable matmul — ``cos(k_i x - omega_i t + phi_i)`` factorizes into

@@ -6,7 +6,7 @@ the published theory rather than by wrapping a NumPy library: J.D. Fenton,
 "A fifth-order Stokes theory for steady waves", J. Waterway, Port, Coastal
 and Ocean Engineering 111(2), 1985 (with the standard erratum to A44/C2).
 
-TPU-first design: the construction lowers (H, T, d) to the canonical
+Device-first design: the construction lowers (H, T, d) to the canonical
 :class:`~small_fem_solver_tpu.ops.waves.FourierWave` coefficient pytree — a
 5-mode cosine series for the surface and a 5-mode velocity series — so
 evaluation shares the single batched kinematics kernel with every other wave

@@ -1,7 +1,7 @@
 """Steady-wave kinematics as one unified, batched Fourier kernel.
 
 Capability parity with the reference ``RaschiiWave`` facade
-(`/root/reference/JacketAnalysisGUI_v2.py:166-296`), redesigned TPU-first.
+(`JacketAnalysisGUI_v2.py:166-296`), redesigned for an accelerator.
 The reference wraps the raschii library (Airy / Stokes / Fenton objects with
 scalar, per-point Python evaluation).  Here every supported wave theory is
 *lowered at construction time* to a single canonical representation — a

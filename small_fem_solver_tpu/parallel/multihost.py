@@ -1,6 +1,6 @@
 """Multi-host (DCN) design sweeps.
 
-Single-host scaling rides ICI through ``jax.sharding`` meshes
+Single-host scaling rides NVLink through ``jax.sharding`` meshes
 (parallel/sweep.py, parallel/pcg_dist.py).  This module adds the multi-host
 layer for very large storm envelopes: one process per host, the case axis
 sharded over the GLOBAL device set, wave setup done host-locally (each

@@ -4,7 +4,7 @@ The tensor-parallel analog for this workload (SURVEY.md section 2.2): the
 global K's 6x6 node-block rows are partitioned across a device-mesh axis
 ('dof'), each device holds its row slab of the BCSR blocks plus its slice of
 the solution/RHS, and the CG iteration runs inside ``shard_map`` with XLA
-collectives over ICI:
+collectives across devices:
 
 - mat-vec: ``all_gather`` of the (small) solution vector, local gathered
   block matvec, local segment-sum — no scatter across devices;
@@ -88,7 +88,7 @@ def distributed_pcg(A: BCSRMatrix, b, fixed_mask, mesh: Mesh,
     adds the smoothed rigid-body-aggregate coarse correction to the
     block-Jacobi preconditioner: the restriction P^T r is a local sparse
     slot einsum + segment_sum + one ``psum`` of the tiny [6 n_agg] coarse
-    residual over ICI, the coarse inverse mat-vec is replicated, and the
+    residual across devices, the coarse inverse mat-vec is replicated, and the
     prolongation is local — so the two-level preconditioner costs one
     small all-reduce per iteration while cutting iteration counts ~7x on
     refined frames (see ops/coarse.py).
@@ -167,7 +167,7 @@ def distributed_pcg(A: BCSRMatrix, b, fixed_mask, mesh: Mesh,
             # smoothed rigid-body coarse correction (ops/coarse.py), sparse
             # form: local slot restriction P^T r (einsum + segment_sum over
             # the locally-owned node rows), one psum of the tiny [6 n_agg]
-            # coarse residual over ICI, replicated Cholesky solve, local
+            # coarse residual across devices, replicated Cholesky solve, local
             # sparse prolongation
             c = jnp.einsum("nkuq,nu->nkq", pb, rb,
                            precision=jax.lax.Precision.HIGHEST)

@@ -2,8 +2,8 @@
 
 This is the first-class replacement for the parallelism the reference lacks
 entirely (SURVEY.md section 2.2): the embarrassingly-parallel axes of the
-workload — wave phase, load case (H, T, heading) — map to ``vmap`` within a
-core and to a ``jax.sharding`` device mesh across ICI.  A thousand-case
+workload — wave phase, load case (H, T, heading) — map to ``vmap`` on one
+device and to a ``jax.sharding`` mesh across devices.  A thousand-case
 storm-envelope sweep is ONE compiled program; each device holds a shard of
 the case batch and the critical-case reduction rides an XLA all-reduce.
 
@@ -50,7 +50,7 @@ def make_wave_batch(H, T, d, U_c=0.0, model: str = "stokes", N: int = 5,
     """Build a batched FourierWave from arrays of (H, T) [and scalar d, U_c].
 
     For 'airy'/'stokes' the constructors trace once and vmap over the case
-    axis (wave setup itself runs on the TPU); 'fenton' runs ONE vmapped
+    axis (wave setup itself runs on the device); 'fenton' runs ONE vmapped
     float64 continuation-Newton over the whole batch on the host CPU
     (:func:`..ops.fenton.fenton_wave_batch`) — a 1,000-case nonlinear storm
     population solves in one compiled program.
@@ -100,7 +100,7 @@ def design_sweep(model: JacketModel, waves: FourierWave, cases: LoadCase,
     """Analyze a batch of (wave, case) pairs as one compiled program.
 
     With ``mesh`` (a 1-D device mesh with axis 'cases'), the batch is
-    sharded across devices — the TPU-native equivalent of a distributed
+    sharded across devices — the device-mesh equivalent of a distributed
     parameter sweep; without it, the batch vmaps on one device.
 
     Material properties must be shared across the batch (enforced), so the
@@ -163,7 +163,7 @@ def _design_sweep_jit(model, waves, cases, free, fixed, ks_nodes, n_gauss,
 def critical_case(results) -> dict:
     """Reduce a sweep to its governing case (max utilization).
 
-    On a sharded batch the argmax induces an XLA all-reduce over ICI.
+    On a sharded batch the argmax induces an XLA all-reduce across devices.
     """
     util = jnp.max(results.utilization, axis=-1)     # [B]
     i = jnp.argmax(util)

@@ -3,7 +3,7 @@
 Runs the PUBLIC reference (`/root/reference/JacketAnalysisGUI_v2.py`) headlessly
 — its physics classes are GUI-independent — on pinned input cases and dumps
 every intermediate and final quantity to JSON.  The test suite then asserts
-the TPU-native build matches to 1e-8 relative without needing to import the
+this build matches to 1e-8 relative without needing to import the
 reference (or pay its pip-probe import delay) at test time.
 
 Run manually when cases change:  python tests/golden/generate_goldens.py

@@ -2,8 +2,8 @@
 
 ops/assembly.py::assemble_bcsr_direct emits entries in [diag | ij | ji]
 block order with the geometry permuted into lane order at prepare time —
-zero runtime gathers (promoted from benchmarks/ab_assembly_direct.py,
-where it measured 1.6x the two-tier gather path at 99,882 DOF on TPU).
+zero runtime gathers (written for an accelerator's lane layout; on the
+H100 the two-tier gather path measured faster, see PERF.md).
 Parity must hold block-for-block against assemble_bcsr and through every
 order-agnostic BCSR consumer.
 """

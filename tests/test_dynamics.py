@@ -126,8 +126,8 @@ def test_harmonic_solve_resonant_amplification():
 
 
 def test_real_dft_matches_rfft():
-    """real_dft_coeffs/_reconstruct (the TPU backend has no FFT and no
-    complex dtype) reproduce the rfft coefficient convention exactly,
+    """real_dft_coeffs/_reconstruct (real-arithmetic DFTs) reproduce the
+    rfft coefficient convention exactly,
     including the even-length Nyquist halving, and round-trip a
     band-limited signal."""
     from small_fem_solver_tpu.ops.dynamics import (real_dft_coeffs,

@@ -1,8 +1,8 @@
 """Device-resident eigensolvers (ops/eigen.py): Jacobi small-matrix eigh,
 Bathe subspace iteration, block power iteration — and the forced-'subspace'
 paths of the modal/buckling/dynamic pipelines, cross-checked on CPU against
-the LAPACK routes they replace on the TPU backend (where jnp.linalg.eigh,
-LU and complex solves are all unimplemented)."""
+the full-eigh routes (written for an accelerator without jnp.linalg.eigh,
+LU or complex solves; kept until measured on the GPU)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,8 +107,8 @@ def test_subspace_largest_matches_lapack():
 
 
 def test_modal_analysis_subspace_backend_matches_lapack(monkeypatch):
-    """_modal_from_ff with the forced 'subspace' backend (what the TPU
-    runs) equals the LAPACK route on the default jacket."""
+    """_modal_from_ff with the forced 'subspace' backend equals the LAPACK
+    route on the default jacket."""
     from small_fem_solver_tpu.ops import dynamics
     ref = dynamics.modal_analysis(sf.default_3leg_jacket(), n_modes=8,
                                   topside_mass_t=1100.0)
@@ -129,8 +129,8 @@ def test_modal_analysis_subspace_backend_matches_lapack(monkeypatch):
 
 def test_dynamic_response_subspace_backend_matches_lapack(monkeypatch):
     """dynamic_response end-to-end with the device eigen backend: same
-    Rayleigh calibration, same utilizations (VERDICT r3 item 3 cross-check:
-    the TPU path must agree with the host solver at rtol <= 1e-6)."""
+    Rayleigh calibration, same utilizations (cross-check: the subspace
+    path must agree with the full eigh at rtol <= 1e-6)."""
     from small_fem_solver_tpu.ops import dynamics
     model = sf.default_3leg_jacket()
     wave = sf.airy_wave(10.0, 9.4, 50.0, 1.0)
@@ -232,7 +232,7 @@ def test_eigh_general_small_illconditioned_gram_f32():
 
 
 def test_cb_reduce_small_chain_f32_finite_and_accurate():
-    """n_seg = 2 Craig-Bampton in float32 (the TPU production dtype):
+    """n_seg = 2 Craig-Bampton in float32 (the fast-path dtype):
     the short-chain direct Rayleigh-Ritz path must produce finite modes
     that match the f64 reduction (round-4 regression test: the matrix-free
     inverse iteration NaN'd 16/51 chains here)."""

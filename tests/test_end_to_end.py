@@ -167,7 +167,7 @@ def test_no_top_nodes_drops_interface_loads_without_nan():
 
 def test_pcg_diagnostics_and_nonconvergence_warning(golden_default):
     """analyze(solver='pcg') surfaces iteration count/residual and warns when
-    PCG hits maxiter without converging (ADVICE round-1 item)."""
+    PCG hits maxiter without converging."""
     import warnings
     p = golden_default["params"]
     model = sf.default_3leg_jacket()

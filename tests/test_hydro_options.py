@@ -6,8 +6,9 @@ import pytest
 
 import small_fem_solver_tpu as sf
 from small_fem_solver_tpu.ops.morison import morison_loads, morison_phase_batch
-from small_fem_solver_tpu.ops.pallas_kernels import morison_phase_batch_pallas
 from small_fem_solver_tpu.ops.waves import _uw_raw, kinematics, surface_elevation
+
+REMOVED_MODE = "pallas"   # the fused-kernel mode, now an unknown mode
 
 
 def _wave():
@@ -100,25 +101,6 @@ def test_current_profile_separable_matches_pointwise():
                                    rtol=1e-4, atol=1e-4 * scale)
 
 
-def test_current_profile_pallas_matches_xla():
-    model = sf.default_3leg_jacket(dtype=jnp.float32)
-    wave = sf.make_wave(9.5, 9.4, 50.0, U_c=1.7, model="stokes", N=5,
-                        dtype=jnp.float32)
-    D_m = model.sections.D_outer[model.sect_id] / 1000.0
-    ts = jnp.arange(6, dtype=jnp.float32) * jnp.float32(9.4) / 6
-    pal = morison_phase_batch_pallas(wave, model.coords, model.conn, D_m,
-                                     38.0, 120.0, 0.7, 2.0, 1025.0, ts,
-                                     current_alpha=1.0 / 7.0, interpret=True)
-    ref = morison_phase_batch(wave, model.coords, model.conn,
-                              D_m.astype(jnp.float32), jnp.float32(38.0),
-                              jnp.float32(120.0), jnp.float32(0.7),
-                              jnp.float32(2.0), jnp.float32(1025.0), ts,
-                              current_alpha=1.0 / 7.0)
-    a = np.asarray(pal.nodal_forces, np.float64)
-    b = np.asarray(ref.nodal_forces, np.float64)
-    assert np.abs(a - b).max() / np.abs(b).max() < 2e-3
-
-
 def test_analyze_and_scan_accept_hydro_options():
     model = sf.default_3leg_jacket()
     wave = sf.make_wave(9.5, 9.4, 50.0, U_c=1.2, model="stokes", N=5)
@@ -138,10 +120,10 @@ def test_analyze_and_scan_accept_hydro_options():
                                    stretching="wheeler",
                                    current_alpha=1.0 / 7.0)
     assert np.isfinite(np.asarray(scan.U)).all()
-    # the Pallas kernel is the one path without a stretch implementation
-    with pytest.raises(ValueError):
+    # an unknown kinematics mode is refused, with or without stretching
+    with pytest.raises(ValueError, match="unknown kinematics mode"):
         sf.phase_scan_condensed(coarse, refined, 2, wave, case, n_steps=3,
-                                kinematics="pallas", stretching="wheeler")
+                                kinematics=REMOVED_MODE, stretching="wheeler")
 
 
 def test_wheeler_separable_matches_pointwise():
@@ -151,7 +133,7 @@ def test_wheeler_separable_matches_pointwise():
     The Taylor error is O((k dz)^3/6) per mode (k dz ~ 0.39 at the crest of
     the H=17 storm) at the worst near-crest quadrature POINT; integrated
     member loads agree to ~1e-2 and the structural response tighter.  This
-    is the measured bound VERDICT round 2 asked to publish — Wheeler +
+    is the published measured bound — Wheeler +
     linear (Airy/spectral) waves is the standard engineering combination
     (API RP 2A); for high-order Stokes/Fenton crest harmonics use the exact
     pointwise path."""
@@ -281,7 +263,7 @@ def test_wheeler_on_envelope_paths():
     envd = sf.design_envelope(coarse, waves, cases, n_steps=4,
                               stretching="wheeler")
     assert np.isfinite(np.asarray(envd.max_util_per_case)).all()
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown kinematics mode"):
         sf.design_envelope_condensed(coarse, refined, n_seg, waves, cases,
-                                     n_steps=4, kinematics="pallas",
+                                     n_steps=4, kinematics=REMOVED_MODE,
                                      stretching="wheeler")

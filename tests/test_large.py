@@ -133,9 +133,8 @@ def test_100kdof_reaction_magnitudes():
 def test_100kdof_spectral_response_converged():
     """Frequency-domain stochastic response at 99,882 DOF: the per-member
     stress sigma of the governing members must be mesh-converged (within
-    2% of the trusted n_seg=8 answer) and every statistic finite.
-    Measured: 67 ms per sea state cached on the TPU after the one-time
-    factorization (65 transfer solves + closed-form statistics)."""
+    2% of the trusted n_seg=8 answer) and every statistic finite (65
+    transfer solves + closed-form statistics per sea state)."""
     coarse = sf.default_3leg_jacket()
     case = _storm_case()
     sea = sf.make_random_sea(9.0, 11.0, 50.0, n_components=16, U_c=1.0,

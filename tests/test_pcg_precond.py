@@ -26,7 +26,7 @@ def _storm():
 def test_two_level_cuts_iterations_10kdof():
     """refine_model(32) jacket, 9,612 DOF, f64, tol 1e-10: measured
     block-Jacobi 4,275 iterations vs two-level 621 (6.9x).  The assertion
-    requires the VERDICT bar of >= 3x and identical physics."""
+    requires a cut of >= 3x and identical physics."""
     wave, case = _storm()
     model = sf.refine_model(sf.default_3leg_jacket(), 32)
     assert model.n_dof == 9612
@@ -88,8 +88,8 @@ def _assembled(n_seg):
 def test_sparse_prolongator_matches_dense_oracle():
     """The round-5 block-sparse smoothed prolongator (slot-table P, O(n)
     apply) must agree to roundoff with the dense-P construction it
-    replaced (the dense form OOM'd the chip at ~100k DOF: 28.4 GB of
-    15.75 GB HBM, VERDICT r04 weak #2)."""
+    replaced (the dense form needed 28.4 GB at ~100k DOF, more than the
+    device held)."""
     from small_fem_solver_tpu.ops.coarse import (
         aggregates_from_pattern, build_coarse_space,
         build_coarse_space_dense, coarse_solve, prolong, prolongator_dense,
@@ -122,7 +122,7 @@ def test_sparse_prolongator_matches_dense_oracle():
 
 
 def test_two_level_sparse_vs_dense_iterates_10kdof():
-    """VERDICT r05 item 9: at ~10k DOF the sparse-P two-level PCG must
+    """At ~10k DOF the sparse-P two-level PCG must
     reproduce the dense-P preconditioner's convergence trajectory —
     identical preconditioner => same iterate sequence up to roundoff, so
     iteration counts match (tiny slack for rounding at the tol check)."""

@@ -140,7 +140,7 @@ def test_pushover_rose_sharded_matches_host():
 
 
 def test_pushover_f32_path():
-    """The TPU fast-path dtype: the f32 pushover stays finite and lands
+    """The fast-path dtype: the f32 pushover stays finite and lands
     on the f64 curve within f32 conditioning tolerance."""
     import jax.numpy as jnp
 

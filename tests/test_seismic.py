@@ -247,7 +247,7 @@ def test_ground_motion_time_history_sdof_identity():
 
 
 def test_response_spectrum_f32_path():
-    """f32 (TPU fast-path) response spectrum tracks f64 within mixed-
+    """f32 (fast-path) response spectrum tracks f64 within mixed-
     precision eigensolve tolerance."""
     model64 = sf.default_3leg_jacket()
     model32 = sf.default_3leg_jacket(dtype=jnp.float32)

@@ -96,7 +96,7 @@ def test_fenton_oracle_mean_current_convention():
 
 
 def test_reference_call_pattern_on_jacket_gauss_grid():
-    """VERDICT r05 item 6 closure: raschii cannot be installed (zero
+    """raschii cannot be installed (zero
     egress), so the reference's nonlinear-wave branch
     (`JacketAnalysisGUI_v2.py:259-296`) is replayed on the independent
     oracle with the reference's EXACT semantics — dry check, raschii
